@@ -2,13 +2,13 @@
 
 import numpy as np
 
-from hagrid_tpu import oracle, scenes
-from hagrid_tpu.core.camera import primary_rays
-from hagrid_tpu.core.types import Triangles
-from hagrid_tpu.grid.irregular import build_irregular, trace_irregular_fast
-from hagrid_tpu.grid.uniform import build_uniform, trace_uniform_fast
-from hagrid_tpu.render.session import RenderSession
-from hagrid_tpu.utils.config import BuildParams
+from hagrid import oracle, scenes
+from hagrid.core.camera import primary_rays
+from hagrid.core.types import Triangles
+from hagrid.grid.irregular import build_irregular, trace_irregular_fast
+from hagrid.grid.uniform import build_uniform, trace_uniform_fast
+from hagrid.render.session import RenderSession
+from hagrid.utils.config import BuildParams
 
 from test_uniform_grid import assert_hits_match, random_rays
 
@@ -23,8 +23,8 @@ def test_compact_uniform_matches_oracle():
     rays = random_rays(300, np.asarray(grid.bbox_lo),
                        np.asarray(grid.bbox_hi), seed=11)
     # min_batch tiny so the compaction rounds actually trigger in tests
-    from hagrid_tpu.ops import wavefront
-    from hagrid_tpu.grid.uniform import uniform_lookup
+    from hagrid.ops import wavefront
+    from hagrid.grid.uniform import uniform_lookup
     got = wavefront.trace(grid, uniform_lookup, rays, round_iters=4,
                           min_batch=16)
     want = oracle.closest_hit(rays, tris)
@@ -37,8 +37,8 @@ def test_compact_irregular_matches_oracle():
     grid = build_irregular(tris, SMALL)
     rays = random_rays(300, np.asarray(grid.bbox_lo),
                        np.asarray(grid.bbox_hi), seed=12)
-    from hagrid_tpu.ops import wavefront
-    from hagrid_tpu.grid.irregular import irregular_lookup
+    from hagrid.ops import wavefront
+    from hagrid.grid.irregular import irregular_lookup
     got = wavefront.trace(grid, irregular_lookup, rays, round_iters=4,
                           min_batch=16)
     want = oracle.closest_hit(rays, tris)
@@ -73,7 +73,7 @@ def test_session_any_hit():
 def test_finite_tmax_respected():
     """Rays with finite tmax must ignore hits beyond it (shadow rays)."""
     import jax.numpy as jnp
-    from hagrid_tpu.core.types import Rays
+    from hagrid.core.types import Rays
 
     v, f = scenes.random_soup(120, seed=9)
     tris = Triangles.from_mesh(v, f)
@@ -103,8 +103,8 @@ def test_finite_tmax_respected():
 def test_empty_scene():
     """A scene with zero triangles builds a valid grid; all rays miss."""
     import jax.numpy as jnp
-    from hagrid_tpu.core.types import Rays
-    from hagrid_tpu.grid.uniform import build_uniform, trace_uniform_fast
+    from hagrid.core.types import Rays
+    from hagrid.grid.uniform import build_uniform, trace_uniform_fast
 
     tris = Triangles.from_mesh(np.zeros((0, 3), np.float32),
                                np.zeros((0, 3), np.int32))

@@ -3,11 +3,11 @@
 import jax.numpy as jnp
 import numpy as np
 
-from hagrid_tpu.core.camera import Camera, primary_rays
-from hagrid_tpu.core.intersect import moller_trumbore, safe_inv_dir, slab_test
-from hagrid_tpu.core.types import AABB, Rays, Triangles
-from hagrid_tpu import oracle
-from hagrid_tpu import scenes
+from hagrid.core.camera import Camera, primary_rays
+from hagrid.core.intersect import moller_trumbore, safe_inv_dir, slab_test
+from hagrid.core.types import AABB, Rays, Triangles
+from hagrid import oracle
+from hagrid import scenes
 
 
 def test_moller_trumbore_basic():

@@ -3,12 +3,12 @@
 import jax
 import numpy as np
 
-from hagrid_tpu import oracle, scenes
-from hagrid_tpu.core.camera import Camera, primary_rays
-from hagrid_tpu.core.types import Triangles
-from hagrid_tpu.render.dynamic import AnimatedScene, wave_deform
-from hagrid_tpu.render.session import RenderSession
-from hagrid_tpu.utils.config import BuildParams
+from hagrid import oracle, scenes
+from hagrid.core.camera import Camera, primary_rays
+from hagrid.core.types import Triangles
+from hagrid.render.dynamic import AnimatedScene, wave_deform
+from hagrid.render.session import RenderSession
+from hagrid.utils.config import BuildParams
 
 from test_uniform_grid import assert_hits_match
 

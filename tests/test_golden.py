@@ -12,12 +12,12 @@ import hashlib
 import numpy as np
 import pytest
 
-from hagrid_tpu import oracle, scenes
-from hagrid_tpu.core.camera import primary_rays
-from hagrid_tpu.core.types import Triangles
-from hagrid_tpu.io.image import dhash, hamming, shade_eyelight, to_u8
-from hagrid_tpu.render.session import RenderSession
-from hagrid_tpu.utils.config import BuildParams
+from hagrid import oracle, scenes
+from hagrid.core.camera import primary_rays
+from hagrid.core.types import Triangles
+from hagrid.io.image import dhash, hamming, shade_eyelight, to_u8
+from hagrid.render.session import RenderSession
+from hagrid.utils.config import BuildParams
 
 SMALL = BuildParams(top_density=0.3, snd_density=2.0, levels=2,
                     merge_passes=2, expansion_passes=2)
@@ -58,21 +58,23 @@ def test_cornell_image_hash_stable():
     assert h == "fb83fdf3e236bd52", f"image hash changed: {h}"
 
 
-# --- Scaled goldens (SURVEY §4.4; VERDICT r4 #7) -----------------------
+# --- Scaled goldens (SURVEY §4.4) -------------------------------------
 #
 # The scenes the benchmarks run on (sponza_like, san_miguel_like) pin a
 # 64-bit perceptual dhash of the rendered image (io/image.dhash): exact
 # pixel hashes are not stable across backends at these tri counts
 # (silhouette pixels flip with float jitter), but structural regressions
 # — camera, shading, geometry, missing occluder panels — flip many
-# gradient-sign bits. Hashes were generated on CPU and cross-checked on
-# TPU v5e (hamming 0-2 observed); tolerance 6/64 keeps backend jitter
-# green while a broken image (hamming ~20-32) stays red.
+# gradient-sign bits. Hashes were generated on CPU; tolerance 6/64
+# keeps backend jitter green while a broken image (hamming ~20-32)
+# stays red.
 #
 # The sponza eyelight golden is additionally ORACLE-anchored: the pinned
 # hash equals the hash of the brute-force oracle render of the same
-# rays (verified at generation time by exp/r5_goldens.py --oracle; the
-# session render's ids matched the oracle exactly on CPU).
+# rays (the session render's ids matched the oracle exactly on CPU). To
+# regenerate a golden, render the same rays with oracle.closest_hit,
+# shade with io.image.shade_eyelight and take io.image.dhash of the
+# image; a session render must match it within HAM_TOL.
 
 GOLD_W = GOLD_H = 128
 HAM_TOL = 6
@@ -102,7 +104,7 @@ def test_sponza_like_golden():
         f"sponza_like eyelight image changed: dhash {h}"
     # AO golden on the same session: covers the incoherent-wave path
     # (secondary-ray sort, calibration, any-hit sweep) end to end.
-    from hagrid_tpu.render.integrators import render_ao
+    from hagrid.render.integrators import render_ao
     import jax
     img, _ = render_ao(s, scenes.sponza_camera(), GOLD_W, GOLD_H,
                        seed=3, n_samples=4)

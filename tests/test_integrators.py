@@ -3,13 +3,13 @@
 import jax
 import numpy as np
 
-from hagrid_tpu import scenes
-from hagrid_tpu.core.camera import Camera, primary_rays
-from hagrid_tpu.core.types import Rays, Triangles
-from hagrid_tpu.ops import sortrays
-from hagrid_tpu.render import integrators
-from hagrid_tpu.render.session import RenderSession
-from hagrid_tpu.utils.config import BuildParams
+from hagrid import scenes
+from hagrid.core.camera import Camera, primary_rays
+from hagrid.core.types import Rays, Triangles
+from hagrid.ops import sortrays
+from hagrid.render import integrators
+from hagrid.render.session import RenderSession
+from hagrid.utils.config import BuildParams
 
 SMALL = BuildParams(top_density=0.3, snd_density=2.0, levels=2,
                     merge_passes=1, expansion_passes=1)

@@ -6,14 +6,14 @@ import sys
 
 import numpy as np
 
-from hagrid_tpu import scenes
-from hagrid_tpu.core.camera import primary_rays
-from hagrid_tpu.core.types import Triangles
-from hagrid_tpu.io.checkpoint import load_grid, save_grid
-from hagrid_tpu.io.image import write_png, write_ppm
-from hagrid_tpu.io.obj import load_obj, save_obj
-from hagrid_tpu.render.session import RenderSession
-from hagrid_tpu.utils.config import BuildParams
+from hagrid import scenes
+from hagrid.core.camera import primary_rays
+from hagrid.core.types import Triangles
+from hagrid.io.checkpoint import load_grid, save_grid
+from hagrid.io.image import write_png, write_ppm
+from hagrid.io.obj import load_obj, save_obj
+from hagrid.render.session import RenderSession
+from hagrid.utils.config import BuildParams
 
 from test_uniform_grid import assert_hits_match
 
@@ -46,12 +46,12 @@ def test_grid_checkpoint_roundtrip(tmp_path):
     save_grid(p, s.grid)
     g2 = load_grid(p)
     rays = primary_rays(scenes.cornell_camera(), 24, 24)
-    from hagrid_tpu.ops.sweep_trace import trace_sweep
+    from hagrid.ops.sweep_trace import trace_sweep
     got = trace_sweep(g2, rays, tile=128, slab=4, bmax=2048)
     want = s.trace(rays)
     assert_hits_match(got, want)
 
-    from hagrid_tpu.grid.irregular import build_irregular, \
+    from hagrid.grid.irregular import build_irregular, \
         trace_irregular_fast
     gi = build_irregular(tris)
     save_grid(p, gi)
@@ -66,7 +66,7 @@ def test_cli_render_and_stats(tmp_path):
                    os.path.abspath(__file__))))
     out = str(tmp_path / "r.png")
     r = subprocess.run(
-        [sys.executable, "-m", "hagrid_tpu.cli", "render", "--scene",
+        [sys.executable, "-m", "hagrid.cli", "render", "--scene",
          "cornell", "--size", "32x32", "--platform", "cpu", "--out", out,
          "--levels", "2", "--merge-passes", "1", "--expansion-passes", "1"],
         capture_output=True, text=True, timeout=500, env=env)
@@ -85,7 +85,7 @@ def test_load_scene_obj_path(tmp_path):
 
 
 def test_stage_timer():
-    from hagrid_tpu.utils.profiling import StageTimer, timed
+    from hagrid.utils.profiling import StageTimer, timed
 
     st = StageTimer()
     with st.stage("a"):

@@ -3,12 +3,12 @@
 import numpy as np
 import pytest
 
-from hagrid_tpu import oracle, scenes
-from hagrid_tpu.core.camera import primary_rays
-from hagrid_tpu.core.types import Rays, Triangles
-from hagrid_tpu.grid import invariants
-from hagrid_tpu.grid.irregular import build_irregular, trace_irregular
-from hagrid_tpu.utils.config import BuildParams
+from hagrid import oracle, scenes
+from hagrid.core.camera import primary_rays
+from hagrid.core.types import Rays, Triangles
+from hagrid.grid import invariants
+from hagrid.grid.irregular import build_irregular, trace_irregular
+from hagrid.utils.config import BuildParams
 
 from test_uniform_grid import assert_hits_match, random_rays
 

@@ -4,13 +4,13 @@ import jax
 import numpy as np
 import pytest
 
-from hagrid_tpu import oracle, scenes
-from hagrid_tpu.core.camera import primary_rays
-from hagrid_tpu.core.types import Triangles
-from hagrid_tpu.grid.irregular import (build_irregular, irregular_lookup,
+from hagrid import oracle, scenes
+from hagrid.core.camera import primary_rays
+from hagrid.core.types import Triangles
+from hagrid.grid.irregular import (build_irregular, irregular_lookup,
                                        trace_irregular)
-from hagrid_tpu.parallel import mesh as pmesh
-from hagrid_tpu.utils.config import BuildParams
+from hagrid.parallel import mesh as pmesh
+from hagrid.utils.config import BuildParams
 
 from test_uniform_grid import assert_hits_match
 
@@ -45,8 +45,8 @@ def test_sharded_sweep_matches_single(eight_devices):
     """The FLAGSHIP path (packet grid + sweep tracer) under shard_map:
     per-shard static shapes (tile/bmax) keep the per-chip program
     identical to single-chip; results must match the oracle."""
-    from hagrid_tpu.grid.packet import build_packet
-    from hagrid_tpu.ops.sweep_trace import trace_sweep
+    from hagrid.grid.packet import build_packet
+    from hagrid.ops.sweep_trace import trace_sweep
 
     mesh = eight_devices
     v, f = scenes.cornell_box()
@@ -89,7 +89,7 @@ def test_pad_rays_dead():
 
 
 def test_distributed_single_process_noop(eight_devices):
-    from hagrid_tpu.parallel import distributed
+    from hagrid.parallel import distributed
 
     distributed.initialize(num_processes=1)  # no-op path
     assert distributed.process_count() == 1

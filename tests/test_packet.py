@@ -3,10 +3,10 @@
 import numpy as np
 import pytest
 
-from hagrid_tpu import scenes
-from hagrid_tpu.core.types import Triangles
-from hagrid_tpu.grid import packet
-from hagrid_tpu.grid.uniform import build_uniform, tri_box_overlap
+from hagrid import scenes
+from hagrid.core.types import Triangles
+from hagrid.grid import packet
+from hagrid.grid.uniform import build_uniform, tri_box_overlap
 
 
 @pytest.fixture(scope="module")
@@ -118,14 +118,14 @@ def test_cols_ids_are_exact_values(cornell):
 
 
 def test_refined_columns_union_matches_uniform_and_oracle():
-    """build_packet(refine=True) (default-off: measured negative on
-    TPU, see grid/packet.py docstring) splits dense rows' columns by
+    """build_packet(refine=True) (default-off, see grid/packet.py
+    docstring) splits dense rows' columns by
     m in {2, 4}. Per base cell, the union of its fine columns must
     equal the unrefined set (fine binning only splits, never drops),
     and the tracer must stay oracle-exact through ragged rows."""
-    from hagrid_tpu import oracle
-    from hagrid_tpu.core.camera import primary_rays
-    from hagrid_tpu.ops.sweep_trace import trace_sweep
+    from hagrid import oracle
+    from hagrid.core.camera import primary_rays
+    from hagrid.ops.sweep_trace import trace_sweep
 
     v, f = scenes.sponza_like(2000)
     tris = Triangles.from_mesh(v, f)
@@ -146,9 +146,9 @@ def test_refined_columns_union_matches_uniform_and_oracle():
 def test_adaptive_slice_planes_match_oracle():
     """build_packet(adaptive=True) places non-uniform slice planes;
     tracing through them must stay oracle-exact."""
-    from hagrid_tpu import oracle, scenes
-    from hagrid_tpu.core.camera import primary_rays
-    from hagrid_tpu.ops.sweep_trace import trace_sweep
+    from hagrid import oracle, scenes
+    from hagrid.core.camera import primary_rays
+    from hagrid.ops.sweep_trace import trace_sweep
 
     v, f = scenes.sponza_like(3000)
     tris = Triangles.from_mesh(v, f)

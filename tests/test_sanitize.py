@@ -2,11 +2,11 @@
 
 import numpy as np
 
-from hagrid_tpu import scenes
-from hagrid_tpu.core.camera import primary_rays
-from hagrid_tpu.core.types import Triangles
-from hagrid_tpu.grid.packet import build_packet
-from hagrid_tpu.utils.sanitize import check_sweep_plan
+from hagrid import scenes
+from hagrid.core.camera import primary_rays
+from hagrid.core.types import Triangles
+from hagrid.grid.packet import build_packet
+from hagrid.utils.sanitize import check_sweep_plan
 
 
 def test_sweep_plan_sanitizer_clean():
@@ -24,7 +24,7 @@ def test_sweep_plan_sanitizer_degenerate_rays():
     """NaN-free planning even for degenerate directions (zero dir)."""
     import jax.numpy as jnp
 
-    from hagrid_tpu.core.types import Rays
+    from hagrid.core.types import Rays
 
     v, f = scenes.cornell_box()
     tris = Triangles.from_mesh(v, f)

@@ -3,10 +3,10 @@ wave shape runs at ~demand * margin and must agree with the first."""
 
 import numpy as np
 
-from hagrid_tpu import scenes
-from hagrid_tpu.core.camera import primary_rays
-from hagrid_tpu.core.types import Triangles
-from hagrid_tpu.render.session import RenderSession
+from hagrid import scenes
+from hagrid.core.camera import primary_rays
+from hagrid.core.types import Triangles
+from hagrid.render.session import RenderSession
 
 
 def test_calibrated_budget_matches_first_frame():
@@ -30,7 +30,7 @@ def test_calibrated_budget_matches_first_frame():
 
 
 def test_overflowed_wave_converges_to_complete_oracle_match():
-    """VERDICT r4 #1 done-bar: a wave whose first probe OVERFLOWS must be
+    """A wave whose first probe OVERFLOWS must be
     re-traced at grown budgets until complete, and the completed result
     must match the oracle; the session's accumulated overflow flag must
     end CLEAR.
@@ -40,8 +40,8 @@ def test_overflowed_wave_converges_to_complete_oracle_match():
     so calibration's FIRST probe genuinely overflows (exactly round 4's
     failure mode: budgets set from an underestimating probe) and the
     retry loop must grow the budget and verify the wave completes."""
-    from hagrid_tpu import oracle
-    from hagrid_tpu.grid import packet
+    from hagrid import oracle
+    from hagrid.grid import packet
 
     v, f = scenes.cornell_box()
     tris = Triangles.from_mesh(v, f)
@@ -54,7 +54,7 @@ def test_overflowed_wave_converges_to_complete_oracle_match():
     rays = primary_rays(scenes.cornell_camera(), 64, 64, order="block")
 
     # Sanity: the floor budget genuinely overflows on this wave.
-    from hagrid_tpu.ops.sweep_trace import trace_sweep
+    from hagrid.ops.sweep_trace import trace_sweep
     _, ovf = trace_sweep(s.grid, rays, coherent=True, bmax=128,
                          return_overflow=True)
     assert bool(np.asarray(ovf))

@@ -1,15 +1,15 @@
-"""Planned-sweep tracer (interpret mode) vs the brute-force oracle."""
+"""Planned-sweep tracer (plain-XLA sweep on the CPU) vs the brute-force oracle."""
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from hagrid_tpu import oracle, scenes
-from hagrid_tpu.core.camera import primary_rays
-from hagrid_tpu.core.types import Rays, Triangles
-from hagrid_tpu.grid.packet import build_packet
-from hagrid_tpu.ops.sweep_trace import trace_sweep
+from hagrid import oracle, scenes
+from hagrid.core.camera import primary_rays
+from hagrid.core.types import Rays, Triangles
+from hagrid.grid.packet import build_packet
+from hagrid.ops.sweep_trace import trace_sweep
 
 
 @pytest.fixture(scope="module")
@@ -47,7 +47,7 @@ def _check(hits, ref, n_report=8, id_rate=0.995):
 def test_primary_cornell_matches_oracle(cornell):
     g = build_packet(cornell, dims=(6, 6, 6))
     rays = primary_rays(scenes.cornell_camera(), 32, 32)
-    hits = trace_sweep(g, rays, interpret=True, tile=128, slab=4, bmax=2048)
+    hits = trace_sweep(g, rays, tile=128, slab=4, bmax=2048)
     ref = oracle.closest_hit(rays, cornell)
     frac = float(np.mean(np.asarray(hits.tri_id) >= 0))
     assert frac > 0.9
@@ -62,7 +62,7 @@ def test_random_rays_match_oracle(cornell):
     d = jax.random.normal(jax.random.PRNGKey(8), (n, 3))
     d = d / jnp.linalg.norm(d, axis=1, keepdims=True)
     rays = Rays.make(org, d)
-    hits = trace_sweep(g, rays, interpret=True, tile=128, slab=4, bmax=2048)
+    hits = trace_sweep(g, rays, tile=128, slab=4, bmax=2048)
     ref = oracle.closest_hit(rays, cornell)
     _check(hits, ref)
 
@@ -73,9 +73,9 @@ def test_finite_tmax_any_hit(cornell):
     ref = oracle.closest_hit(rays, cornell)
     short = Rays(org=rays.org, dir=rays.dir, tmin=rays.tmin,
                  tmax=jnp.where(jnp.isfinite(ref.t), ref.t * 0.5, 1e-3))
-    hits = trace_sweep(g, short, interpret=True, tile=128, slab=4, bmax=2048)
+    hits = trace_sweep(g, short, tile=128, slab=4, bmax=2048)
     assert (np.asarray(hits.tri_id) == -1).all()
-    any_hits = trace_sweep(g, rays, any_hit=True, interpret=True,
+    any_hits = trace_sweep(g, rays, any_hit=True,
                            tile=128, slab=4, bmax=2048)
     assert ((np.asarray(any_hits.tri_id) >= 0)
             == (np.asarray(ref.tri_id) >= 0)).all()
@@ -86,5 +86,5 @@ def test_empty_scene():
                                np.zeros((0, 3), np.int32))
     g = build_packet(tris)
     rays = primary_rays(scenes.cornell_camera(), 8, 8)
-    hits = trace_sweep(g, rays, interpret=True, tile=128, slab=4, bmax=2048)
+    hits = trace_sweep(g, rays, tile=128, slab=4, bmax=2048)
     assert (np.asarray(hits.tri_id) == -1).all()

@@ -3,11 +3,11 @@
 import numpy as np
 import pytest
 
-from hagrid_tpu import oracle, scenes
-from hagrid_tpu.core.camera import primary_rays
-from hagrid_tpu.core.types import Rays, Triangles
-from hagrid_tpu.grid import invariants, traverse_ref
-from hagrid_tpu.grid.uniform import build_uniform
+from hagrid import oracle, scenes
+from hagrid.core.camera import primary_rays
+from hagrid.core.types import Rays, Triangles
+from hagrid.grid import invariants, traverse_ref
+from hagrid.grid.uniform import build_uniform
 
 
 def assert_hits_match(got, want, rtol=1e-4):

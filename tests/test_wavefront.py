@@ -3,10 +3,10 @@
 import numpy as np
 import pytest
 
-from hagrid_tpu import oracle, scenes
-from hagrid_tpu.core.camera import primary_rays
-from hagrid_tpu.core.types import Rays, Triangles
-from hagrid_tpu.grid.uniform import build_uniform, trace_uniform
+from hagrid import oracle, scenes
+from hagrid.core.camera import primary_rays
+from hagrid.core.types import Rays, Triangles
+from hagrid.grid.uniform import build_uniform, trace_uniform
 
 from test_uniform_grid import assert_hits_match, random_rays
 
